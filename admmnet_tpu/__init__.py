@@ -1,6 +1,6 @@
-"""admmnet_tpu: TPU-native joint delay-Doppler atomic-norm recovery framework.
+"""admmnet_tpu: joint delay-Doppler atomic-norm recovery framework (JAX, GPU).
 
-A from-scratch JAX/XLA/Pallas/pjit re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 reference repo E-J408/admm-net (OFDM-ISAC joint delay-Doppler target
 estimation):
 
@@ -12,16 +12,17 @@ estimation):
 - ``models``   -- unrolled ADMM-Net (flax) with learned per-layer parameters
 - ``data``     -- pure-JAX synthetic OFDM-ISAC dataset generation + the
                   bundled ``data.npz`` anchor case
-- ``train``    -- optax/orbax training drivers (losses, schedules,
+- ``train``    -- optax training drivers (losses, schedules,
                   checkpoint/resume, metrics)
 - ``parallel`` -- mesh/sharding utilities (scenario/data parallelism)
-- ``kernels``  -- Pallas TPU kernels for the hot paths
 - ``bench``    -- throughput/scaling benchmark harness
+- ``utils``    -- compile cache, profiling and debug helpers
 - ``cli``      -- entry points mirroring the reference's scripts
 
 Everything batches over an instance axis first: the problem per instance is
 tiny (MN=100, lifted matrices 101x101), so throughput comes from running
-thousands of independent instances as one program sharded over a TPU mesh.
+thousands of independent instances as one program sharded over a device
+mesh.
 """
 
 __version__ = "0.1.0"

@@ -22,7 +22,7 @@ def build_parser():
     p.add_argument("--force-cpu", type=int, default=None, metavar="N",
                    help="run on N virtual CPU devices (validates the sharded "
                         "path and measures scaling shape without a pod; "
-                        "absolute numbers are not TPU numbers)")
+                        "absolute numbers are not device numbers)")
     p.add_argument("--json", action="store_true")
     return p
 
@@ -37,6 +37,9 @@ def main(argv=None):
 
     from admmnet_tpu.bench import scaling_report
     from admmnet_tpu.core.config import ADMMOptions
+    from admmnet_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
 
     n_avail = len(jax.devices())
     counts = args.devices or sorted(

@@ -36,10 +36,7 @@ def build_parser():
     p.add_argument("--cheb-degree", type=int, default=48)
     p.add_argument("--cheb-precision", default="highest",
                    choices=["highest", "default"],
-                   help="Clenshaw matmul precision (default = one-pass bf16)")
-    p.add_argument("--cheb-impl", default="xla", choices=["xla", "pallas"],
-                   help="Clenshaw engine: xla or the fused one-pass Pallas "
-                        "kernel (kernels/cheb_filter.py, inference only)")
+                   help="Clenshaw matmul precision (default = TF32 on GPU)")
     p.add_argument("--head", default="spectrum",
                    choices=["attention", "spectrum"],
                    help="peak head (--what e2e)")
@@ -65,7 +62,9 @@ def main(argv=None):
 
     from admmnet_tpu.core.config import ADMMOptions, ModelConfig, ProblemSpec
     from admmnet_tpu.data.anchor import make_anchor_batch
-    from admmnet_tpu.utils.host import cjit
+    from admmnet_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
 
     y, b, sigma = make_anchor_batch(args.runs, mode="redemod", seed=0)
 
@@ -74,9 +73,7 @@ def main(argv=None):
 
         if args.adaptive:
             # reference protocol: stop per instance at eta, floor min_iter=5,
-            # cap max_iter (reference admm.py:95-112).  The while_loop+mask
-            # path cannot use the fused whole-solve kernel; per-step g modes
-            # only.
+            # cap max_iter (reference admm.py:95-112).
             opts = ADMMOptions(g_update=args.g_update, max_iter=args.iters,
                                eta_abs=args.eta, eta_rel=args.eta)
 
@@ -86,7 +83,7 @@ def main(argv=None):
                         res.iterations,
                         res.converged.astype(jnp.int32))
 
-            inner = cjit(_run)
+            inner = jax.jit(_run)
 
             def fn(y, b, s):
                 total, iters, conv = inner(y, b, s)
@@ -98,7 +95,7 @@ def main(argv=None):
                      f"max {args.iters}, {args.g_update})")
         else:
             opts = ADMMOptions(g_update=args.g_update)
-            fn = cjit(
+            fn = jax.jit(
                 lambda y, b, s: jnp.sum(
                     jnp.abs(admm_solve_fixed(y, b, s, args.iters, 1.0, opts))
                 )
@@ -112,10 +109,9 @@ def main(argv=None):
         mcfg = ModelConfig(spec=ProblemSpec(), num_layers=args.layers,
                            g_mode=args.g_mode, head=args.head,
                        cheb_degree=args.cheb_degree,
-                       cheb_precision=args.cheb_precision,
-                       cheb_impl=args.cheb_impl)
+                       cheb_precision=args.cheb_precision)
         model = (ADMMNet if e2e else PhiEstADMMNet)(cfg=mcfg)
-        params = cjit(lambda k, y, b, s: model.init(k, y, b, s))(
+        params = jax.jit(lambda k, y, b, s: model.init(k, y, b, s))(
             jax.random.PRNGKey(0), y[:1], b[:1], sigma[:1]
         )
         if args.ckpt:
@@ -128,11 +124,11 @@ def main(argv=None):
                 tau, f, conf, _phi = model.apply(params, y, b, s)
                 return jnp.sum(tau) + jnp.sum(f) + jnp.sum(conf)
 
-            fn = cjit(_run)
+            fn = jax.jit(_run)
             label = (f"ADMM-Net e2e detection ({args.layers} layers, "
                      f"{args.head} head)")
         else:
-            fn = cjit(
+            fn = jax.jit(
                 lambda y, b, s: jnp.sum(jnp.abs(model.apply(params, y, b, s)))
             )
             label = f"ADMM-Net forward ({args.layers} layers)"
@@ -141,17 +137,17 @@ def main(argv=None):
         # true per-solve latency, one instance at a time -- the reference
         # protocol (test_time_admm.py:85-110) is 1000 independent runs with
         # fresh noise per run; every run here is a distinct anchor instance.
-        float(fn(y[:1], b[:1], sigma[:1]))  # compile
+        jax.block_until_ready(fn(y[:1], b[:1], sigma[:1]))  # compile
         times = []
         for i in range(args.runs):
             t0 = time.perf_counter()
-            float(fn(y[i : i + 1], b[i : i + 1], sigma[i : i + 1]))
+            jax.block_until_ready(fn(y[i : i + 1], b[i : i + 1], sigma[i : i + 1]))
             times.append(time.perf_counter() - t0)
         times = np.asarray(times)
     else:
-        float(fn(y, b, sigma))  # compile
+        jax.block_until_ready(fn(y, b, sigma))  # compile
         t0 = time.perf_counter()
-        float(fn(y, b, sigma))
+        jax.block_until_ready(fn(y, b, sigma))
         total = time.perf_counter() - t0
         times = np.full(args.runs, total / args.runs)
 

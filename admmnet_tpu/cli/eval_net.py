@@ -24,10 +24,7 @@ def build_parser():
     p.add_argument("--cheb-degree", type=int, default=48)
     p.add_argument("--cheb-precision", default="highest",
                    choices=["highest", "default"],
-                   help="Clenshaw matmul precision (default = one-pass bf16)")
-    p.add_argument("--cheb-impl", default="xla", choices=["xla", "pallas"],
-                   help="Clenshaw engine: xla or the fused one-pass Pallas "
-                        "kernel (kernels/cheb_filter.py, inference only)")
+                   help="Clenshaw matmul precision (default = TF32 on GPU)")
     p.add_argument("--head", default="attention",
                    choices=["attention", "spectrum"],
                    help="e2e ADMMNet peak head variant")
@@ -53,8 +50,11 @@ def _eval_e2e(args):
     from admmnet_tpu.models import ADMMNet
     from admmnet_tpu.peaks import match_peaks
     from admmnet_tpu.train.checkpoint import restore_checkpoint
-    from admmnet_tpu.utils.host import cjit, to_host
     from pathlib import Path
+
+    from admmnet_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
 
     gen = DatasetGenerator(data_dir=args.data)
     info = json.loads((Path(args.data) / "dataset_config.json").read_text())
@@ -67,10 +67,9 @@ def _eval_e2e(args):
                        g_mode=args.g_mode, head=args.head,
                        cheb_degree=args.cheb_degree,
                        cheb_precision=args.cheb_precision,
-                       cheb_impl=args.cheb_impl,
                        learned_sensing=args.learned_sensing)
     model = ADMMNet(cfg=mcfg)
-    params = cjit(lambda k, y, b, s: model.init(k, y, b, s))(
+    params = jax.jit(lambda k, y, b, s: model.init(k, y, b, s))(
         jax.random.PRNGKey(0), test["y"][:2], test["b"][:2], test["sigma"][:2]
     )
     restored = restore_checkpoint(args.ckpt, {"params": params, "opt_state": None})
@@ -82,8 +81,8 @@ def _eval_e2e(args):
         tau, f, conf, _phi = model.apply(p, y, b, s)
         return tau, f, conf
 
-    tau, f, conf = to_host(
-        cjit(run)(params, test["y"], test["b"], test["sigma"])
+    tau, f, conf = jax.device_get(
+        jax.jit(run)(params, test["y"], test["b"], test["sigma"])
     )
     order = np.argsort(-conf, axis=-1)  # confidence-desc, as find_peaks sorts
     rows = np.arange(n)[:, None]
@@ -115,7 +114,9 @@ def main(argv=None):
     from admmnet_tpu.peaks import find_peaks, match_peaks, scale_invariant_nmse
     from admmnet_tpu.train.checkpoint import restore_checkpoint
     from admmnet_tpu.train.losses import phi_alignment_loss
-    from admmnet_tpu.utils.host import cjit, to_host
+    from admmnet_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
 
     gen = DatasetGenerator(data_dir=args.data)
     from pathlib import Path
@@ -132,10 +133,9 @@ def main(argv=None):
                        g_mode=args.g_mode, head=args.head,
                        cheb_degree=args.cheb_degree,
                        cheb_precision=args.cheb_precision,
-                       cheb_impl=args.cheb_impl,
                        learned_sensing=args.learned_sensing)
     model = PhiEstADMMNet(cfg=mcfg)
-    params = cjit(lambda k, y, b, s: model.init(k, y, b, s))(
+    params = jax.jit(lambda k, y, b, s: model.init(k, y, b, s))(
         jax.random.PRNGKey(0), test["y"][:2], test["b"][:2], test["sigma"][:2]
     )
     restored = restore_checkpoint(args.ckpt, {"params": params, "opt_state": None})
@@ -152,8 +152,8 @@ def main(argv=None):
         pk_cls = find_peaks(phi_true, spec.Nb, spec.Nd, pcfg)
         return loss, parts, pk_net, pk_cls, phi_net
 
-    loss, parts, pk_net, pk_cls, phi_net = to_host(
-        cjit(run)(params, test["y"], test["b"], test["sigma"], test["phi"])
+    loss, parts, pk_net, pk_cls, phi_net = jax.device_get(
+        jax.jit(run)(params, test["y"], test["b"], test["sigma"], test["phi"])
     )
 
     L = spec.L_max

@@ -25,10 +25,10 @@ def build_parser():
     p.add_argument("--with-phi", action="store_true",
                    help="label with classical-solver phi (batched)")
     p.add_argument("--phi-iters", type=int, default=100)
-    p.add_argument("--phi-g-update", default="fused_exact",
-                   help="PSD step for the labeller (fused_exact|polar|"
-                        "newton_schulz|eigh; fused_exact = round-5 fused "
-                        "phi-exact kernel, NMSE vs eigh 1.8e-6)")
+    p.add_argument("--phi-g-update", default="polar",
+                   help="PSD step for the labeller (polar|eigh|"
+                        "newton_schulz; polar = the phi-exact contract, "
+                        "NMSE vs eigh <= 1e-5)")
     p.add_argument("--stats-plot", action="store_true",
                    help="write dataset_statistics.png (reference "
                         "generate_data.py:302-349)")
@@ -40,6 +40,9 @@ def main(argv=None):
 
     from admmnet_tpu.core.config import ADMMOptions, DataConfig, ProblemSpec
     from admmnet_tpu.data.generator import DatasetGenerator
+    from admmnet_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
 
     snr = (
         (args.fixed_snr, args.fixed_snr)

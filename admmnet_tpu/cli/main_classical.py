@@ -31,16 +31,17 @@ def build_parser():
     p.add_argument("--plot", default=None, help="directory for output figures")
     p.add_argument("--json", action="store_true", help="machine-readable output")
     p.add_argument("--deploy", action="store_true",
-                   help="round-5 gated deployment point: fused fixed-budget "
-                        "solve (DETECTION_BUDGET_ITERS=10) + PRODUCTION_PEAKS "
-                        "(2-round DEFAULT-precision refine) -- the detection "
-                        "contract at ~30x the full-budget throughput "
-                        "(RESULTS 1.6); overrides --max-iter/--eta/--g-update")
+                   help="gated deployment point: detection-grade polar_fast "
+                        "solve at the fixed DETECTION_BUDGET_ITERS budget + "
+                        "PRODUCTION_PEAKS (2-round DEFAULT-precision refine); "
+                        "overrides --max-iter/--eta/--g-update")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+
+    import jax
 
     from admmnet_tpu.core.config import (
         ADMMOptions,
@@ -51,18 +52,19 @@ def main(argv=None):
     from admmnet_tpu.data.anchor import load_anchor
     from admmnet_tpu.peaks import find_peaks, match_peaks
     from admmnet_tpu.solver import admm_solve, admm_solve_fixed
-    from admmnet_tpu.utils.host import cjit, to_host
+    from admmnet_tpu.utils import enable_compile_cache
 
+    enable_compile_cache()
     sc = load_anchor(mode=args.mode, snr_w=args.snr_w,
                      rng=np.random.default_rng(args.seed))
     lam = args.lambda_val
 
     if args.deploy:
-        opts = ADMMOptions(rho=args.rho, g_update="fused_fast",
+        opts = ADMMOptions(rho=args.rho, g_update="polar_fast",
                            phi_update=args.phi_update)
         pcfg = PRODUCTION_PEAKS
         budget = DETECTION_BUDGET_ITERS
-        phi = cjit(
+        phi = jax.jit(
             lambda y, b, s: admm_solve_fixed(y, b, s, budget, lam, opts)
         )(
             np.asarray(sc.y, np.complex64)[None],
@@ -70,7 +72,7 @@ def main(argv=None):
             np.float32(sc.sigma)[None],
         )[0]
         # fixed-budget solve: there IS no convergence measurement (the
-        # budget is certificate-gated offline, RESULTS 1.6) -- report None
+        # budget is gated offline, see core.config) -- report None
         info = {"iterations": budget, "converged": None}
     else:
         opts = ADMMOptions(
@@ -80,17 +82,17 @@ def main(argv=None):
         )
         pcfg = PeakSearchConfig()
 
-        run = cjit(lambda y, b, s: admm_solve(y, b, s, lam, opts))
+        run = jax.jit(lambda y, b, s: admm_solve(y, b, s, lam, opts))
         res = run(
             np.asarray(sc.y, np.complex64), np.asarray(sc.b, np.complex64),
             np.float32(sc.sigma),
         )
         phi = res.phi
-        info = to_host(
+        info = jax.device_get(
             {"iterations": res.iterations, "converged": res.converged}
         )
-    peaks = to_host(
-        cjit(lambda p: find_peaks(p, sc.Nb, sc.Nd, pcfg))(phi)
+    peaks = jax.device_get(
+        jax.jit(lambda p: find_peaks(p, sc.Nb, sc.Nd, pcfg))(phi)
     )
 
     rows = [
@@ -132,12 +134,11 @@ def main(argv=None):
     if args.plot:
         from pathlib import Path
 
-        from admmnet_tpu.utils.host import to_host as th
         from admmnet_tpu.utils.plotting import plot_peaks, plot_predictions_vs_truth
 
         d = Path(args.plot)
         d.mkdir(parents=True, exist_ok=True)
-        phi_host = th(phi)
+        phi_host = np.asarray(phi)
         plot_predictions_vs_truth(sc.f, sc.tau, rows, str(d / "pred_vs_truth.png"))
         plot_peaks(phi_host, sc.Nb, sc.Nd, {"tau": sc.tau, "f": sc.f},
                    str(d / "peaks_surface.png"))

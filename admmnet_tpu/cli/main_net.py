@@ -40,7 +40,9 @@ def main(argv=None):
     from admmnet_tpu.models import PhiEstADMMNet
     from admmnet_tpu.peaks import find_peaks, match_peaks
     from admmnet_tpu.train.checkpoint import restore_checkpoint
-    from admmnet_tpu.utils.host import cjit, to_host
+    from admmnet_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
 
     sc = load_anchor(mode=args.mode, rng=np.random.default_rng(args.seed))
     spec = ProblemSpec(Nb=sc.Nb, Nd=sc.Nd, L_max=3)
@@ -52,7 +54,7 @@ def main(argv=None):
     b = np.asarray(sc.b, np.complex64)[None, :]
     sigma = np.asarray([sc.sigma], np.float32)
 
-    params = cjit(lambda key, y, b, s: model.init(key, y, b, s))(
+    params = jax.jit(lambda key, y, b, s: model.init(key, y, b, s))(
         jax.random.PRNGKey(0), y, b, sigma
     )
     restored = restore_checkpoint(args.ckpt, {"params": params, "opt_state": None})
@@ -60,12 +62,12 @@ def main(argv=None):
         raise SystemExit(f"no checkpoint found under {args.ckpt}")
     params = restored[0]["params"]
 
-    infer = cjit(
+    infer = jax.jit(
         lambda p, y, b, s: find_peaks(
             model.apply(p, y, b, s), sc.Nb, sc.Nd, PeakSearchConfig()
         )
     )
-    peaks = to_host(infer(params, y, b, sigma))
+    peaks = jax.device_get(infer(params, y, b, sigma))
     rows = [
         [float(peaks.tau[0, i]), float(peaks.f[0, i]), float(peaks.height[0, i])]
         for i in range(args.top)

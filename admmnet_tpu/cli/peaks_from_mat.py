@@ -3,7 +3,7 @@
 Loads a phi vector exported from the original MATLAB implementation
 (.mat, variable ``phi_ad`` by default; the reference expects
 data/mat/phi_ad.mat which is not bundled upstream either), peak-searches it
-with the batched TPU pipeline, and prints peaks sorted by height -- the
+with the batched pipeline, and prints peaks sorted by height -- the
 cross-implementation check against the MATLAB ANM-DUMV code.
 
 Usage: python -m admmnet_tpu.cli.peaks_from_mat data/mat/phi_ad.mat
@@ -30,9 +30,13 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     import scipy.io as sio
 
+    import jax
+
     from admmnet_tpu.core.config import PeakSearchConfig
     from admmnet_tpu.peaks import find_peaks
-    from admmnet_tpu.utils.host import cjit, to_host
+    from admmnet_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
 
     mat = sio.loadmat(args.mat_file)
     if args.var not in mat:
@@ -42,8 +46,8 @@ def main(argv=None):
         )
     phi = np.asarray(mat[args.var]).reshape(-1).astype(np.complex64)
 
-    peaks = to_host(
-        cjit(lambda p: find_peaks(p, args.Nb, args.Nd, PeakSearchConfig()))(phi)
+    peaks = jax.device_get(
+        jax.jit(lambda p: find_peaks(p, args.Nb, args.Nd, PeakSearchConfig()))(phi)
     )
     print(f"found peaks (top {args.top}) [tau, f, height]:")
     shown = 0

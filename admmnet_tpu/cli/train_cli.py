@@ -16,10 +16,6 @@ def build_parser():
     p.add_argument("--workdir", required=True)
     p.add_argument("--phi", action="store_true", help="train PhiEstADMMNet")
     p.add_argument("--num-layers", type=int, default=10)
-    p.add_argument("--cheb-impl", default="xla", choices=["xla", "pallas"],
-                   help="Clenshaw engine for g_mode=chebyshev; 'pallas' "
-                        "trains via the round-5 custom VJP at ~2x the "
-                        "step throughput (RESULTS 3.10)")
     p.add_argument("--g-mode", default="eigh", choices=["eigh", "chebyshev"],
                    help="GLayer spectral-filter evaluation (see ops/chebyshev.py)")
     p.add_argument("--head", default="attention",
@@ -61,6 +57,9 @@ def main(argv=None):
     from admmnet_tpu.core.config import ModelConfig, ProblemSpec, TrainConfig, to_json
     from admmnet_tpu.data.generator import DatasetGenerator
     from admmnet_tpu.train.trainer import train_admmnet, train_phinet
+    from admmnet_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
 
     gen = DatasetGenerator(data_dir=args.data)
     info = json.loads((Path(args.data) / "dataset_config.json").read_text())
@@ -71,7 +70,6 @@ def main(argv=None):
 
     mcfg = ModelConfig(spec=spec, num_layers=args.num_layers,
                        g_mode=args.g_mode, head=args.head,
-                       cheb_impl=args.cheb_impl,
                        learned_sensing=args.learned_sensing)
     lr = args.lr if args.lr is not None else (5e-3 if args.phi else 1e-3)
     sw = args.spectral_weight

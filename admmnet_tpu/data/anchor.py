@@ -4,7 +4,7 @@ The reference ships 100 QPSK symbols ``sig`` and a demodulation-error vector
 ``e`` (6 symbol errors, SER 6%) and rebuilds the same 3-target scenario in
 main.py:8-95 and both timing benches (test/test_time_admm.py:50-60).  This
 module reproduces that scenario construction, host-side in float64 numpy
-(data prep is not a TPU hot path), with the reference's ``data_type`` modes:
+(data prep is not a device hot path), with the reference's ``data_type`` modes:
 
 - ``"fixed_e"``  (reference data_type=2): b = sig - e, deterministic symbols;
 - ``"redemod"``  (reference data_type=1): fresh demod noise at snr_e on sig;

@@ -1,7 +1,7 @@
 """Unrolled-ADMM layer modules (flax.linen).
 
 Functional parity targets are the reference's learned layers
-(admm_net.py:71-491), with the TPU-first deltas:
+(admm_net.py:71-491), with these deltas:
 
 - layers pass the diagonal ``h`` VECTOR between stages instead of
   materializing the (n, n) diagonal matrix H (the reference embeds/extracts
@@ -100,7 +100,7 @@ class GLayer(nn.Module):
     - ``"eigh"`` (reference-parity default): Hermitian eigh with detached
       eigenvectors (reference admm_net.py:306), filter on eigenvalues,
       U diag(w') U^H rebuild;
-    - ``"chebyshev"`` (TPU-fast): the identical learned filter applied as a
+    - ``"chebyshev"`` (matmul-only): the identical learned filter applied as a
       matmul-only matrix function via ops.chebyshev.apply_spectral_filter
       -- no eigendecomposition anywhere, fully differentiable (no detach
       needed: polynomials have no eigenvector-derivative pathology).
@@ -113,12 +113,7 @@ class GLayer(nn.Module):
     ref_stop_gradients: bool = True
     mode: str = "eigh"  # "eigh" | "chebyshev"
     cheb_degree: int = 48
-    cheb_precision: str = "highest"  # "highest" | "default" (one-pass bf16)
-    # "xla" | "pallas" (fused one-pass kernel; round 5: differentiable via
-    # a custom VJP, so it trains too -- see kernels/cheb_filter.py and
-    # core.config.ModelConfig.cheb_impl)
-    cheb_impl: str = "xla"
-    cheb_kblk: int = 8
+    cheb_precision: str = "highest"  # "highest" | "default" (TF32 on GPU)
 
     @nn.compact
     def __call__(self, phi, h, Z):
@@ -150,16 +145,6 @@ class GLayer(nn.Module):
         M = B - Z / (rho + self.epsilon)
 
         if self.mode == "chebyshev":
-            if self.cheb_impl == "pallas":
-                from admmnet_tpu.kernels.cheb_filter import (
-                    apply_spectral_filter_pallas,
-                )
-
-                G = apply_spectral_filter_pallas(
-                    hermitianize(M), spectral_filter, self.cheb_degree,
-                    kblk=self.cheb_kblk,
-                )
-                return hermitianize(G)
             from admmnet_tpu.ops.chebyshev import apply_spectral_filter
 
             G = apply_spectral_filter(

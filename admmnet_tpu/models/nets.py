@@ -78,8 +78,6 @@ class _Trunk(nn.Module):
                 mode=cfg.g_mode,
                 cheb_degree=cfg.cheb_degree,
                 cheb_precision=cfg.cheb_precision,
-                cheb_impl=cfg.cheb_impl,
-                cheb_kblk=cfg.cheb_kblk,
                 name=f"g_{k}",
             )(phi, h, Z)
             Z = ZLayer(

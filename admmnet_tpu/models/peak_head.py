@@ -15,9 +15,8 @@ version of the classical coarse-to-fine peak search (peaks/search.py).  The
 reference sketches this idea in dead code (admm_net.py:632-720,
 ``differentiable_spectrum``/``peak_refinement``, never called); its shipped
 attention head regresses (tau, f) directly from phi and localizes coarsely
-(measured position-matched F1 0.093 vs 0.876 for phi-regression + classical
-search, RESULTS.md 2.5).  This head instead evaluates the dual-polynomial
-spectrum |<phi, a(tau,f)>|^2 on a coarse separable-matmul grid (MXU work,
+(far below phi-regression + classical search on position-matched F1).  This head instead evaluates the dual-polynomial
+spectrum |<phi, a(tau,f)>|^2 on a coarse separable-matmul grid (batched matmuls,
 peaks/spectrum.py), takes the top-L_max local maxima (hard argmax,
 stop-gradient -- cell choice is discrete), zooms with hard argmax rounds,
 and finishes with a soft-argmax over the final window (learnable

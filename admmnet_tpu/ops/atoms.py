@@ -1,7 +1,7 @@
 """Atom / steering-vector factory for the joint delay-Doppler dictionary.
 
-TPU-first design: everything is expressed so that spectrum evaluation over a
-grid of candidate (tau, f) points becomes ONE dense complex matmul (MXU),
+Design: everything is expressed so that spectrum evaluation over a grid of
+candidate (tau, f) points becomes ONE dense complex matmul,
 instead of the reference's nested Python loops over grid points
 (reference utils/peakSearchUtils.py:37-60).
 

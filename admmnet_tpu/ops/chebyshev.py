@@ -1,14 +1,13 @@
-"""Matrix spectral filters as Chebyshev polynomials (matmul-only, MXU path).
+"""Matrix spectral filters as Chebyshev polynomials (matmul-only).
 
-Motivation (TPU-first redesign of the learned PSD step): the reference's
+Motivation (a matmul-only form of the learned PSD step): the reference's
 GLayer (admm_net.py:208-354) eigendecomposes the lifted matrix every layer to
 apply a learned scalar filter f to the spectrum and rebuild ``V f(L) V^H``.
-An eigendecomposition is the one primitive that maps poorly onto the MXU; but
+An eigendecomposition is a sequential, poorly batched primitive; but
 ``V f(L) V^H = f_mat(M)`` is a *matrix function*, and any continuous f on the
 spectral interval is approximated by a Chebyshev expansion whose evaluation
-(Clenshaw recurrence) is nothing but ``degree`` matrix products -- exactly
-what the MXU is built for, and exactly the trick used for the PSD projection
-itself (kernels/polar.py).
+(Clenshaw recurrence) is nothing but ``degree`` batched matrix products --
+the same trick the polar PSD projection uses (ops/projections.py).
 
 Pipeline per call (batched over leading dims):
 1. bound the spectrum: r = ||M||_F >= rho(M); normalize Mh = M / r;
@@ -68,10 +67,9 @@ def apply_spectral_filter(
     terms = number of matrix products.
 
     ``precision``: matmul precision for the Clenshaw recurrence (default
-    HIGHEST).  At ``lax.Precision.DEFAULT`` each matmul is ONE bf16 MXU pass
-    instead of ~6 (the polar-kernel trade, kernels/polar.py); the recurrence
-    is kept on the Hermitian manifold by re-projecting each iterate, exactly
-    like the bf16 sign schedule -- without it the one-pass noise's
+    HIGHEST).  Below HIGHEST (``lax.Precision.DEFAULT`` may run in TF32 on
+    the GPU) the recurrence is kept on the Hermitian manifold by
+    re-projecting each iterate -- without it the rounding noise's
     non-Hermitian component compounds through the 2*M*b1 doubling.
     """
     prec = _HI if precision is None else precision

@@ -12,7 +12,7 @@ lower bound) and paste the printed tuple into ops/projections.py:
 
     python -m admmnet_tpu.ops.fit_polar_schedule --steps 7 --l0 1e-3
 
-The quality figures printed alongside are the ones the kernel docstrings
+The quality figures printed alongside are the ones the schedule comments
 cite: composed ``|p(x) - 1|`` on ``[l0, 1]`` and the |M|-weighted error
 ``max_x |x (p(x) - 1)|`` on ``[0, 1]`` (what a PSD projection actually
 feels: absolute eigenvalue error scaled by eigenvalue magnitude).
@@ -57,22 +57,21 @@ def fit_schedule(steps: int, l0: float = 1e-3, u0: float = 1.0):
 # ---------------------------------------------------------------------------
 # bf16-safe schedule (POLAR_BF16_SCHEDULE): two-phase LP with box constraints
 #
-# One-pass-bf16 matmuls (Mosaic DEFAULT precision) inject ~4e-3 relative
-# noise per product.  The plain minimax schedule diverges under that noise
+# One-pass bf16 matmuls inject ~4e-3 relative noise per product.  The plain minimax schedule diverges under that noise
 # for two reasons, both fixed here:
 #  1. its polynomials explode outside the fitted band (step-1 quintic reaches
 #     ~22 at x=1.2), so a noise-displaced eigenvalue blows up -> every step
 #     is constrained to the box  floor <= g(x) <= 1+e  on [0, 1.02*u];
 #  2. matmul noise breaks Hermitian symmetry, the iterate drifts non-normal,
 #     and polynomial iterations on non-normal matrices have unbounded
-#     transient growth -> the kernel re-Hermitianizes X after every
-#     low-precision step (cheap transposes; see kernels/polar.py).
+#     transient growth -> a low-precision evaluation must re-Hermitianize X
+#     after every step (cheap transposes).
 # With the box, one gentle step cannot flatten [l0, 1], so early steps
 # instead MAXIMIZE the guaranteed growth of the smallest band eigenvalue
 # (also an LP: max t s.t. g >= t on band, box on [0, xmax]); once the band
 # lower edge passes ~0.25, minimax polish steps take over.  Eigenvalues
 # below the bf16 noise floor are written off -- they contribute O(noise)
-# error to |M|, the measured ~2.6e-3 relative error floor of the fast mode.
+# error to |M|.
 # ---------------------------------------------------------------------------
 
 
@@ -117,10 +116,9 @@ def fit_bf16_schedule(l0: float = 3e-3, noise: float = 6e-3,
                       bootstrap_until: float = 0.25, max_bf16: int = 14):
     """Fit the two-phase bf16-safe schedule + the optional HIGHEST polish.
 
-    Returns (schedule, polish): run every schedule step at Mosaic DEFAULT
-    (one-pass bf16) with per-step Hermitian projection and the final |M|
-    products at HIGHEST; optionally append ``polish`` as a HIGHEST step
-    (hi_steps=1) -- it tightens the eigenvalue band below the bf16 noise
+    Returns (schedule, polish): the schedule steps tolerate one-pass bf16
+    products with per-step Hermitian projection and the final |M| products
+    at HIGHEST; ``polish`` is an optional extra HIGHEST step -- it tightens the eigenvalue band below the bf16 noise
     floor, which only marginally improves |M| (the floor is the write-off
     of near-zero eigenvalues, not band width).
     """

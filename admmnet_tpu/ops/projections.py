@@ -19,9 +19,9 @@ per-iteration native-solver calls.
 
 - ``psd_project_newton_schulz``: matmul-only approximation using the
   matrix-sign Newton-Schulz iteration: P(M) = (M + |M|)/2 with
-  |M| = sign(M) @ M.  Runs on the MXU at full speed (complex matmuls), unlike
-  eigh's sequential QR sweeps; accuracy degrades smoothly for eigenvalues near
-  zero, which ADMM tolerates.
+  |M| = sign(M) @ M.  Batched complex matmuls only, unlike eigh's sequential
+  sweeps; accuracy degrades smoothly for eigenvalues near zero, which ADMM
+  tolerates.
 
 Derivation of project_sum_inf (for the docstring-level record):
 minimize 1/2||h-t||^2 s.t. f(h) <= 1 with f(h) = A*||h||_inf + 1^T h, A > 0.
@@ -40,10 +40,11 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-# TPU MXU note: DEFAULT matmul precision is one-pass bf16, whose noise the
-# large early coefficients of the sign schedules amplify into divergence
-# (measured: relative error ~2e2 vs eigh at DEFAULT, 1.4e-5 at HIGHEST).
-# Every numerically-critical contraction below pins HIGHEST explicitly.
+# Precision note: on the GPU a float32 product at DEFAULT precision may run
+# in TF32 (about 10 mantissa bits), and the large early coefficients of the
+# sign schedules amplify that rounding noise from step to step.  Every
+# numerically critical contraction below therefore pins HIGHEST (full f32);
+# a cheaper tier must be gated per contract against the eigh solve first.
 _HI = jax.lax.Precision.HIGHEST
 
 
@@ -190,7 +191,7 @@ def _matrix_abs_newton_schulz(M: jnp.ndarray, iters: int) -> jnp.ndarray:
 
 
 def psd_project_newton_schulz(M: jnp.ndarray, iters: int = 24) -> jnp.ndarray:
-    """Approximate PSD projection P(M) ~ (M + |M|)/2, matmul-only (MXU path)."""
+    """Approximate PSD projection P(M) ~ (M + |M|)/2, matmul-only."""
     absM = _matrix_abs_newton_schulz(M, iters)
     P = 0.5 * (M + absM)
     return 0.5 * (P + jnp.conj(jnp.swapaxes(P, -1, -2)))
@@ -212,31 +213,13 @@ POLAR_QUINTIC_SCHEDULE = (
     (1.874984, -1.249968, 0.374983),
 )
 
-# Shortened all-HIGHEST quintic schedule for the fused phi-exact solve
-# (round 5, kernels/fused_admm_fast.py all_hi mode): same greedy minimax LP
-# at a larger write-off floor l0=1e-2 -- |p-1| < 1.3e-6 on [1e-2, 1],
-# |M|-weighted error max|x(p-1)| = 9.4e-4 on [0, 1] (vs the 7-step
-# schedule's 7.3e-5 at 1.9x the matmuls).  Refit:
-#   python -m admmnet_tpu.ops.fit_polar_schedule --steps 5 --l0 1e-2
-POLAR_QUINTIC5_SCHEDULE = (
-    (8.093369, -23.620432, 17.446153),
-    (3.636586, -2.721927, 0.536546),
-    (2.661300, -1.977155, 0.452616),
-    (1.956172, -1.337508, 0.383853),
-    (1.875144, -1.250140, 0.374996),
-)
-
-# bf16-safe two-phase schedule (fit_polar_schedule.fit_bf16_schedule): steps
-# 1-4 maximize guaranteed growth of the smallest eigenvalue inside the box
-# 0 <= g <= ~1.01 on [0, 1.02u] (no overshoot anywhere -> one-pass-bf16
-# noise cannot escape), steps 5-6 are box-constrained minimax polish.
-# Exact arithmetic: |p-1| < 1e-5 on [3e-3, 1], p([0,1]) subset [0, ~1].
-# Under simulated one-pass bf16 with per-step Hermitian projection:
-# |M| relative error <= 3.1e-3 -- the noise-floor write-off of eigenvalues
-# below ~3e-3 * ||M||_F, NOT the band width, so the optional HIGHEST polish
-# step (POLAR_BF16_POLISH, hi_steps=1) only improves it to ~2.7e-3 while
-# costing 45 extra MXU passes.  All-bf16: 72 passes per projection vs the
-# all-HIGHEST 7-step schedule's 396 -> 5.5x less MXU work.
+# Box-constrained two-phase schedule (fit_polar_schedule.fit_bf16_schedule),
+# the detection-grade "polar_fast" path: steps 1-4 maximize guaranteed
+# growth of the smallest eigenvalue inside the box 0 <= g <= ~1.01 on
+# [0, 1.02u] (no overshoot anywhere, so low-precision rounding noise cannot
+# escape), steps 5-6 are box-constrained minimax polish.  Exact arithmetic:
+# |p-1| < 1e-5 on [3e-3, 1], p([0,1]) subset [0, ~1].  18 matmuls per
+# projection vs the 7-step schedule's 21.
 POLAR_BF16_SCHEDULE = (
     (4.203834, -11.937382, 8.504934),
     (4.101730, -11.104443, 7.628472),
@@ -246,28 +229,10 @@ POLAR_BF16_SCHEDULE = (
     (1.858068, -1.215865, 0.357804),
 )
 
-# Optional HIGHEST-precision polish step fitted to the post-noise band
-# [1 - 1.5*noise, 1 + 1.5*noise]; append when hi_steps=1 is requested.
+# Polish step fitted to the post-noise band [1 - 1.5*noise, 1 + 1.5*noise]
+# (the fitter's second output; appended only where a low-precision tier
+# needs a full-precision final step).
 POLAR_BF16_POLISH = (1.866601, -1.233157, 0.366556)
-
-# Shortened detection-grade schedules for the fused whole-solve kernel
-# (kernels/fused_admm_fast.py): same two-phase fit at a larger eigenvalue
-# write-off l0 (fit_bf16_schedule(l0=...)), so fewer growth steps reach the
-# minimax band.  Eigenvalues below l0 * ||M||_F project inexactly -- an
-# inexact prox the outer ADMM tolerates: measured end-to-end (B=2048 x 100
-# iters, 2026-08-19), detection F1 on 64 anchor instances is 1.0 and on 64
-# random-SNR scenes (SNR 5-25 dB) >= the exact-eigh control (0.849) for
-# BOTH schedules, with tau RMSE within 0.001 of control.  Not used by the
-# per-step polar_fast mode, whose contract is the 6-step accuracy floor.
-POLAR_BF16_SCHED3 = (  # l0=8e-2: |p-1|<1.3e-3 on [l0,1], max|x(p-1)|=1.1e-2
-    (3.903078, -9.676286, 6.609491),
-    (3.375574, -5.406171, 3.036886),
-    (1.871320, -1.227411, 0.356540),
-)
-POLAR_BF16_SCHED2 = (  # l0=3e-1: |p-1|<1.4e-3 on [l0,1], max|x(p-1)|=4.2e-2
-    (3.443876, -5.718143, 3.322709),
-    (1.871813, -1.227907, 0.356561),
-)
 
 
 def _matrix_abs_polar(M: jnp.ndarray, schedule=POLAR_QUINTIC_SCHEDULE) -> jnp.ndarray:
@@ -287,10 +252,12 @@ def _matrix_abs_polar(M: jnp.ndarray, schedule=POLAR_QUINTIC_SCHEDULE) -> jnp.nd
 
 
 def psd_project_polar(M: jnp.ndarray, schedule=POLAR_QUINTIC_SCHEDULE) -> jnp.ndarray:
-    """PSD projection via the minimax quintic sign schedule (MXU path).
+    """PSD projection via a minimax quintic sign schedule (matmul-only).
 
-    ~2.3x fewer matmuls than cubic Newton-Schulz at much higher accuracy;
-    the default G-step for throughput-mode classical solving.
+    ~2.3x fewer matmuls than cubic Newton-Schulz at much higher accuracy.
+    The default 7-step schedule is the phi-exact contract (``g_update=
+    "polar"``); ``POLAR_BF16_SCHEDULE`` is the detection-grade one
+    (``"polar_fast"``).
     """
     absM = _matrix_abs_polar(M, schedule)
     P = 0.5 * (M + absM)

@@ -1,12 +1,12 @@
 """Multi-host runtime bootstrap.
 
 The reference has no distributed story at all (SURVEY.md 2.2); this is the
-TPU-native equivalent layer: one controller process per host, meshes that
-span all hosts, collectives riding ICI within a slice and DCN across slices.
+multi-host layer: one controller process per host, meshes that span all
+hosts' GPUs, collectives handed to NCCL by XLA.
 
 ``init_distributed()`` wraps ``jax.distributed.initialize`` with the usual
-environment conventions (TPU pods auto-discover; CPU/GPU fleets pass
-coordinator/num_processes/process_id explicitly or via env).  It is a no-op
+environment conventions (coordinator/num_processes/process_id passed
+explicitly or via env).  It is a no-op
 when the runtime is already initialized or when running single-process, so
 library code and CLIs can call it unconditionally.
 
@@ -49,9 +49,9 @@ def init_distributed(
 ) -> DistributedInfo:
     """Initialize the multi-host runtime (idempotent).
 
-    Args default from env: COORDINATOR / NPROC / PROC_ID.  On TPU pods all
-    three may be omitted (the runtime auto-discovers from the metadata
-    server).  Single-process (no coordinator anywhere): no-op.
+    Args default from env: COORDINATOR / NPROC / PROC_ID.  GPU fleets must
+    pass all three (nothing auto-discovers them).  Single-process (no
+    coordinator anywhere): no-op.
     """
     coordinator_address = coordinator_address or os.environ.get("COORDINATOR")
     num_processes = num_processes or _int_env("NPROC")
@@ -59,8 +59,6 @@ def init_distributed(
 
     already = getattr(jax._src.distributed.global_state, "client", None) is not None
     if not already and (coordinator_address is not None or num_processes is not None):
-        # TPU-pod auto-discovery: pass nothing and let the runtime find the
-        # coordinator; explicit fleets pass all three.
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,

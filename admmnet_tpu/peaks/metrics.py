@@ -1,6 +1,6 @@
 """Peak-detection scoring: precision/recall/F1 and localization RMSE.
 
-Host-side numpy (evaluation, not a TPU hot path).  The detection protocol
+Host-side numpy (evaluation, not a device hot path).  The detection protocol
 generalizes the reference's count-based statistics (train.py:381-392) to a
 location-aware greedy matching: a prediction is a true positive only if it
 falls within tolerance of an unmatched ground-truth target.  The reference's

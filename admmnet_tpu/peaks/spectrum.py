@@ -5,13 +5,13 @@ a = kron(s(f), conj(d(tau))) (reference utils/peakSearchUtils.py:9-33).  The
 reference evaluates it one grid point at a time through nested Python loops
 (peakSearchUtils.py:37-60) -- the post-processing hot spot.
 
-TPU-first formulation: because the atom is separable, the whole grid is a
+Formulation: because the atom is separable, the whole grid is a
 2-D non-uniform DFT of conj(phi) reshaped to (Nb, Nd):
 
   <phi, a>(tau, f) = sum_m s(f)_m * sum_k conj(Phi[m, k]) * conj(d(tau))_k
                    = [ S(f) @ conj(Phi) @ conj(D(tau))^T ]
 
-i.e. two small dense matmuls (MXU) shared across the instance batch, with no
+i.e. two small dense matmuls shared across the instance batch, with no
 (grid x n) atom matrix ever materialized.
 """
 

@@ -1,4 +1,4 @@
-"""Batched classical ANM-DUMV ADMM solver, TPU-first.
+"""Batched classical ANM-DUMV ADMM solver.
 
 Functional target: reference admm.py:6-114 (``admm_for_us``), re-designed for
 XLA instead of translated:
@@ -51,6 +51,7 @@ from admmnet_tpu.ops.linalg import (
     vec_norm,
 )
 from admmnet_tpu.ops.projections import (
+    POLAR_BF16_SCHEDULE,
     project_sum_inf,
     psd_project_eigh,
     psd_project_newton_schulz,
@@ -103,31 +104,10 @@ def _phi_update_ref_dense(y, b, g, zeta, rho):
 def _g_step(M, opts: ADMMOptions):
     if opts.g_update == "eigh":
         return psd_project_eigh(M)
-    # "fused_fast"/"fused_exact" reach here only from the while_loop path
-    # (admm_solve) or the off-TPU fallback; their per-step PSD math is
-    # polar_fast's / polar's respectively.
-    if opts.g_update in ("polar", "polar_fast", "fused_fast", "fused_exact"):
-        # On TPU the fused Pallas kernel is ~3.3x the XLA path (VMEM-resident
-        # schedule, Hermitian-structure matmul savings); elsewhere use XLA.
-        # "polar_fast" additionally runs all but the last schedule step at
-        # one-pass bf16 (box-constrained POLAR_BF16_SCHEDULE; ~2.6e-3 |M|
-        # error vs ~1e-4) -- only meaningful on the real MXU, so the XLA
-        # fallback just evaluates its schedule at full precision.
-        fast = opts.g_update in ("polar_fast", "fused_fast")
-        if jax.default_backend() == "tpu" and M.shape[-1] <= 128:
-            from admmnet_tpu.kernels.polar import psd_project_polar_pallas
-
-            if fast:
-                return psd_project_polar_pallas(
-                    M, mode="fast", hi_steps=opts.polar_fast_hi_steps,
-                    bf16_store=opts.polar_bf16_store,
-                )
-            return psd_project_polar_pallas(M)
-        if fast:
-            from admmnet_tpu.ops.projections import POLAR_BF16_SCHEDULE
-
-            return psd_project_polar(M, schedule=POLAR_BF16_SCHEDULE)
+    if opts.g_update == "polar":
         return psd_project_polar(M)
+    if opts.g_update == "polar_fast":
+        return psd_project_polar(M, schedule=POLAR_BF16_SCHEDULE)
     if opts.g_update == "newton_schulz":
         return psd_project_newton_schulz(M, opts.newton_schulz_iters)
     # "ref_identity": the reference's SVD step on a Hermitian matrix
@@ -259,87 +239,6 @@ def admm_solve_fixed(
     batch = y.shape[:-1]
     n = y.shape[-1]
 
-    if opts.g_update in ("fused_fast", "fused_exact"):
-        # whole solve in one Pallas call (kernels/fused_admm_fast.py);
-        # falls back to the scan path + polar_fast/polar when the kernel
-        # can't apply -- LOUDLY, so a benchmark misconfiguration can't
-        # silently produce a wrong-mode number.
-        exact = opts.g_update == "fused_exact"
-        fallback = "polar" if exact else "polar_fast"
-        fused_ok = (
-            jax.default_backend() == "tpu" and n + 1 <= 128 and len(batch) <= 1
-        )
-        if not fused_ok:
-            import warnings
-
-            reason = (
-                f"backend={jax.default_backend()!r} (needs 'tpu')"
-                if jax.default_backend() != "tpu"
-                else f"lifted size {n + 1} > 128"
-                if n + 1 > 128
-                else f"batch rank {len(batch)} > 1 (flatten leading dims)"
-            )
-            warnings.warn(
-                f"g_update={opts.g_update!r} falling back to the scan path "
-                f"with g_update={fallback!r}: {reason}",
-                stacklevel=2,
-            )
-        if fused_ok:
-            from admmnet_tpu.kernels.fused_admm_fast import (
-                admm_solve_fused_fast,
-            )
-            from admmnet_tpu.ops.projections import (
-                POLAR_BF16_SCHED2,
-                POLAR_BF16_SCHED3,
-                POLAR_BF16_SCHEDULE,
-                POLAR_QUINTIC5_SCHEDULE,
-                POLAR_QUINTIC_SCHEDULE,
-            )
-
-            if exact:
-                sched = {
-                    "quintic5": POLAR_QUINTIC5_SCHEDULE,
-                    "quintic7": POLAR_QUINTIC_SCHEDULE,
-                }[opts.fused_exact_schedule]
-                kw = dict(
-                    hi_steps=0,
-                    outer_iters=opts.fused_exact_proj_iters,
-                    inner_iters=opts.fused_exact_inner_iters,
-                    schedule=sched, final_hi=True, layout="lean",
-                    fold_diag=opts.fused_fold_diag,
-                    warm_root=opts.fused_exact_warm_root,
-                    all_hi=True,
-                    three_pass=opts.fused_exact_three_pass,
-                )
-            else:
-                sched = {
-                    "full": POLAR_BF16_SCHEDULE,
-                    "sched3": POLAR_BF16_SCHED3,
-                    "sched2": POLAR_BF16_SCHED2,
-                }[opts.fused_schedule]
-                kw = dict(
-                    hi_steps=opts.polar_fast_hi_steps,
-                    outer_iters=opts.fused_proj_iters,
-                    inner_iters=opts.fused_inner_iters,
-                    schedule=sched, final_hi=opts.fused_final_hi,
-                    layout=opts.fused_layout,
-                    loop_unroll=opts.fused_unroll,
-                    fold_diag=opts.fused_fold_diag,
-                    warm_root=opts.fused_warm_root,
-                )
-            yb = y.reshape(-1, n) if batch else y[None]
-            out = admm_solve_fused_fast(
-                yb, jnp.broadcast_to(b, yb.shape),
-                jnp.broadcast_to(jnp.asarray(sigma, jnp.float32),
-                                 yb.shape[:1]),
-                num_iters, opts.rho, lambda_val,
-                kblk=opts.fused_kblk, **kw,
-            )
-            return out.reshape(*batch, n) if batch else out[0]
-        import dataclasses as _dc
-
-        opts = _dc.replace(opts, g_update=fallback)
-
     sigma = jnp.broadcast_to(jnp.asarray(sigma, jnp.float32), batch)
     A = 2.0 * jnp.sqrt(float(n)) * sigma + sigma**2
     lam_inv_sq = 1.0 / (lambda_val**2)
@@ -361,9 +260,12 @@ def admm_solve_fixed(
             jnp.diagonal(lifted_topleft(G_c), axis1=-2, axis2=-1)
             + jnp.diagonal(lifted_topleft(Z_c), axis1=-2, axis2=-1) / opts.rho
         )
-        h = project_sum_inf(t, A)
+        # named scopes let a profiler trace split an iteration by stage
+        with jax.named_scope("h_projection"):
+            h = project_sum_inf(t, A)
         B = assemble_lifted(h, phi, lam_inv_sq)
-        G = _g_step(hermitianize(B - Z_c / opts.rho), opts)
+        with jax.named_scope("psd_projection"):
+            G = _g_step(hermitianize(B - Z_c / opts.rho), opts)
         Z = Z_c + opts.rho * (G - B)
         return (phi, h, G, Z), None
 

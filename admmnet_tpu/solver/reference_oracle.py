@@ -1,6 +1,6 @@
 """Numpy reimplementation of the REFERENCE solver's exact semantics.
 
-Not part of the TPU compute path: this is the golden oracle the JAX solver's
+Not part of the device compute path: this is the golden oracle the JAX solver's
 ref-compat mode is tested against (complex128, explicit matrix inverses, a
 deliberately different code path from solver/admm.py).
 

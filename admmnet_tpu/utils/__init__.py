@@ -1,3 +1,3 @@
-from admmnet_tpu.utils.host import cjit, to_device, to_host
+from admmnet_tpu.utils.compile_cache import enable_compile_cache
 
-__all__ = ["cjit", "to_device", "to_host"]
+__all__ = ["enable_compile_cache"]

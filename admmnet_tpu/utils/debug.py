@@ -33,9 +33,7 @@ def check_finite(tree: Any, name: str = "tree") -> None:
     """Raise FloatingPointError naming the first non-finite leaf."""
     import jax
 
-    from admmnet_tpu.utils.host import to_host
-
-    host = to_host(tree)
+    host = jax.device_get(tree)
     leaves_with_paths = jax.tree_util.tree_flatten_with_path(host)[0]
     for path, leaf in leaves_with_paths:
         arr = np.asarray(leaf)

@@ -50,29 +50,53 @@ def test_metrics_writer_roundtrip(tmp_path):
     assert (tmp_path / "training_history.json").exists()
 
 
-def test_device_retry_recovers_from_transient_failures():
-    from admmnet_tpu.utils.retry import device_retry
+def test_split_events_union_idle_and_stages():
+    from admmnet_tpu.utils.profiling import split_events
 
-    calls = {"n": 0}
+    evs = [
+        (0, 10, "gemm jit(f)/while/body/psd_projection/dot"),
+        (5, 10, "fusion jit(f)/while/body/psd_projection/add"),  # overlaps
+        (30, 10, "reduce jit(f)/while/body/h_projection/reduce"),
+        (45, 5, "transpose jit(f)/while/body/add"),
+    ]
+    r = split_events(evs, ("psd_projection", "h_projection"))
+    assert r["events"] == 4
+    assert abs(r["window_s"] - 50e-9) < 1e-15
+    assert abs(r["busy_s"] - 30e-9) < 1e-15  # [0,15] + [30,40] + [45,50]
+    assert abs(r["idle_share"] - 0.4) < 1e-12
+    assert r["stage_s"] == {"psd_projection": 20e-9, "h_projection": 10e-9,
+                            "other": 5e-9}
+    empty = split_events([], ("x",))
+    assert empty["idle_share"] is None and empty["events"] == 0
 
-    @device_retry(attempts=3, cooldown_s=0.01, log_fn=lambda s: None)
-    def flaky():
-        calls["n"] += 1
-        if calls["n"] < 3:
-            raise RuntimeError("UNAVAILABLE: TPU worker process crashed")
-        return 42
 
-    assert flaky() == 42 and calls["n"] == 3
+def test_device_stage_split_on_cpu_trace_finds_no_gpu_events(tmp_path):
+    """A CPU trace has no GPU plane: the reduction returns zero events (the
+    card's trace is what it is for) and a missing trace raises."""
+    import jax
+
+    from admmnet_tpu.utils.profiling import device_stage_split, trace
+
+    with trace(str(tmp_path)):
+        jax.block_until_ready(jax.jit(lambda x: x * 2)(jnp.ones(4)))
+    assert device_stage_split(str(tmp_path), ("a",))["events"] == 0
+    with pytest.raises(FileNotFoundError):
+        device_stage_split(str(tmp_path / "none"), ("a",))
 
 
-def test_device_retry_raises_non_retryable():
-    from admmnet_tpu.utils.retry import device_retry
+def test_hlo_op_names_maps_instructions_to_scopes():
+    """The trace's hlo_op names resolve to op_name metadata (named scopes)
+    through the compiled module's text."""
+    import jax
 
-    @device_retry(attempts=3, cooldown_s=0.01, log_fn=lambda s: None)
-    def broken():
-        raise ValueError("logic bug")
+    from admmnet_tpu.utils.profiling import hlo_op_names
 
-    import pytest as _pytest
+    def f(x):
+        with jax.named_scope("psd_projection"):
+            y = jnp.sin(x) @ x
+        return y + 1.0
 
-    with _pytest.raises(ValueError):
-        broken()
+    x = jnp.ones((8, 8))
+    names = hlo_op_names(jax.jit(f).lower(x).compile().as_text())
+    assert names and all(not k.startswith("%") for k in names)
+    assert any("psd_projection" in v for v in names.values())

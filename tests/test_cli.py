@@ -77,8 +77,8 @@ def test_plotting_writes_files(tmp_path):
 
 
 def test_main_classical_deploy_mode(tmp_path, capsys):
-    """--deploy runs the gated fixed-budget pipeline (fused solve falls
-    back to polar_fast on CPU, loudly) and still localizes the anchor."""
+    """--deploy runs the gated fixed-budget pipeline (detection-grade
+    polar_fast solve) and still localizes the anchor."""
     import json as _json
 
     from admmnet_tpu.cli.main_classical import main

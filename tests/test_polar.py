@@ -36,27 +36,6 @@ def test_polar_matches_eigh_on_random_hermitian():
     assert err.max() < 2e-4, err.max()
 
 
-def test_polar_pallas_kblk_padding():
-    """K-blocked kernel (interpret mode): batch not a multiple of kblk, and
-    kblk larger than the batch, both pad with zero matrices exactly."""
-    import pytest
-
-    from admmnet_tpu.kernels.polar import psd_project_polar_pallas
-
-    rng = np.random.default_rng(7)
-    X = (rng.normal(size=(5, 33, 33)) + 1j * rng.normal(size=(5, 33, 33))).astype(
-        np.complex64
-    )
-    M = (X + np.conj(np.swapaxes(X, -1, -2))) / 2
-    Pe = np.asarray(psd_project_eigh(jnp.asarray(M)))
-    for kblk in (2, 4, 8):  # 5 % 2 != 0; kblk=8 > batch
-        Pp = np.asarray(
-            psd_project_polar_pallas(jnp.asarray(M), interpret=True, kblk=kblk)
-        )
-        err = np.linalg.norm(Pe - Pp, axis=(1, 2)) / np.linalg.norm(Pe, axis=(1, 2))
-        assert err.max() < 2e-4, (kblk, err.max())
-
-
 def test_polar_solver_mode_matches_eigh_mode():
     y, b, s = make_anchor_batch(2, mode="redemod", seed=5)
     phi_e = np.asarray(
@@ -107,52 +86,8 @@ def test_bf16_schedule_box_and_band_properties():
     assert np.abs(x * (p - 1.0))[x <= 1.0].max() < 2e-4
 
 
-def test_polar_fast_mode_matches_eigh_in_interpret():
-    """mode="fast" kernel path (per-step Hermitian projection + bf16
-    schedule) in interpret mode (f32 matmuls): the schedule itself must be
-    near-exact; bf16-noise behavior is validated on hardware by the bench
-    quality gate."""
-    from admmnet_tpu.kernels.polar import psd_project_polar_pallas
-
-    rng = np.random.default_rng(11)
-    X = (rng.normal(size=(3, 101, 101)) + 1j * rng.normal(size=(3, 101, 101))).astype(
-        np.complex64
-    )
-    M = (X + np.conj(np.swapaxes(X, -1, -2))) / 2
-    Pe = np.asarray(psd_project_eigh(jnp.asarray(M)))
-    Pf = np.asarray(
-        psd_project_polar_pallas(jnp.asarray(M), interpret=True, mode="fast")
-    )
-    err = np.linalg.norm(Pe - Pf, axis=(1, 2)) / np.linalg.norm(Pe, axis=(1, 2))
-    assert err.max() < 5e-4, err.max()
-
-
-def test_polar_fast_bf16_store_accuracy_in_interpret():
-    """bf16_store=True keeps the iterate in bf16 between low-precision steps
-    (a measured end-to-end negative result -- see RESULTS.md 3.5 -- kept as
-    a knob): the projection must stay at the fast mode's hardware noise
-    floor (~3e-3) even with bf16 rounding applied in interpret mode."""
-    from admmnet_tpu.kernels.polar import psd_project_polar_pallas
-
-    rng = np.random.default_rng(12)
-    X = (rng.normal(size=(3, 101, 101)) + 1j * rng.normal(size=(3, 101, 101))).astype(
-        np.complex64
-    )
-    M = (X + np.conj(np.swapaxes(X, -1, -2))) / 2
-    Pe = np.asarray(psd_project_eigh(jnp.asarray(M)))
-    for hi in (0, 1):
-        Pf = np.asarray(
-            psd_project_polar_pallas(
-                jnp.asarray(M), interpret=True, mode="fast", hi_steps=hi,
-                bf16_store=True,
-            )
-        )
-        err = np.linalg.norm(Pe - Pf, axis=(1, 2)) / np.linalg.norm(Pe, axis=(1, 2))
-        assert err.max() < 8e-3, (hi, err.max())
-
-
 def test_polar_fast_solver_mode_matches_eigh_mode():
-    """g_update="polar_fast" end-to-end (XLA fallback path off-TPU)."""
+    """g_update="polar_fast" end-to-end (the detection-grade schedule)."""
     y, b, s = make_anchor_batch(2, mode="redemod", seed=5)
     phi_e = np.asarray(
         admm_solve_fixed(jnp.asarray(y), jnp.asarray(b), jnp.asarray(s), 40, 1.0,
